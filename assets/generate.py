@@ -18,8 +18,8 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-from owl_path_tracer_tpu.utils.obj import MeshData, save_obj  # noqa: E402
-from owl_path_tracer_tpu.utils.image import write_hdr  # noqa: E402
+from owl_path_tracer.utils.obj import MeshData, save_obj  # noqa: E402
+from owl_path_tracer.utils.image import write_hdr  # noqa: E402
 
 HERE = pathlib.Path(__file__).resolve().parent
 
@@ -200,7 +200,7 @@ def gen_environment(path, h=512, w=1024):
 
 def gen_cube_texture(path):
     """Checkerboard stand-in for the missing cube-textures/cube.png."""
-    from owl_path_tracer_tpu.utils.image import write_png_rgba8
+    from owl_path_tracer.utils.image import write_png_rgba8
 
     path.parent.mkdir(exist_ok=True)
     n = 256

@@ -3,7 +3,7 @@
 An independent, straight-line scalar re-derivation of the reference sampler
 semantics (/root/reference/path_tracer/src/device/disney/*.cuh) in numpy
 float32, including the lazy per-branch RNG consumption.  The batched JAX
-implementation (owl_path_tracer_tpu.ops.disney) is tested against this for
+implementation (owl_path_tracer.ops.disney) is tested against this for
 random materials and directions; agreement of (f, wi, pdf, lobe, rng state)
 validates both the math and the draw accounting.
 """

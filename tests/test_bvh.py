@@ -6,10 +6,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from owl_path_tracer_tpu.ops import bvh as bvh_mod
-from owl_path_tracer_tpu.ops import traverse
-from owl_path_tracer_tpu.ops.intersect import closest_hit_brute, any_hit_brute
-from owl_path_tracer_tpu.utils import obj as obj_mod
+from owl_path_tracer.ops import bvh as bvh_mod
+from owl_path_tracer.ops import traverse
+from owl_path_tracer.ops.intersect import closest_hit_brute, any_hit_brute
+from owl_path_tracer.utils import obj as obj_mod
 
 ASSETS = pathlib.Path(__file__).resolve().parents[1] / "assets"
 

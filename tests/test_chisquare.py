@@ -30,10 +30,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from owl_path_tracer_tpu.models import material
-from owl_path_tracer_tpu.ops import disney
-from owl_path_tracer_tpu.ops import math as m
-from owl_path_tracer_tpu.ops import sampling as sm
+from owl_path_tracer.models import material
+from owl_path_tracer.ops import disney
+from owl_path_tracer.ops import math as m
+from owl_path_tracer.ops import sampling as sm
 
 N_SAMPLES = 1 << 17
 N_COS, N_PHI = 12, 16

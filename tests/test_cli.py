@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from owl_path_tracer_tpu.utils import cli
+from owl_path_tracer.utils import cli
 
 
 def test_sweep_values_match_reference_loop():
@@ -74,10 +74,10 @@ def _args(assets, out):
 
 
 def test_set_material_attribute_roundtrip():
-    from owl_path_tracer_tpu.models import material as material_mod
-    from owl_path_tracer_tpu.models.camera import make_camera
-    from owl_path_tracer_tpu.models.scene import scene_from_arrays
-    from owl_path_tracer_tpu.utils.parser import CameraDesc
+    from owl_path_tracer.models import material as material_mod
+    from owl_path_tracer.models.camera import make_camera
+    from owl_path_tracer.models.scene import scene_from_arrays
+    from owl_path_tracer.utils.parser import CameraDesc
 
     mat = material_mod.single()
     v = np.asarray([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
@@ -125,7 +125,7 @@ def test_cli_fused2_wavefront_single_frame(tmp_path):
     assert [p.name for p in outputs] == ["sphere.png"]
     assert outputs[0].stat().st_size > 0
     # and the image is not empty/black everywhere
-    from owl_path_tracer_tpu.utils.image import read_png
+    from owl_path_tracer.utils.image import read_png
 
     img = read_png(outputs[0])
     assert np.asarray(img).max() > 0

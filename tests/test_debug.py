@@ -3,7 +3,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from owl_path_tracer_tpu.ops import debug as dbg
+from owl_path_tracer.ops import debug as dbg
 
 
 def test_checked_gather_debug_raises():
@@ -38,10 +38,10 @@ def test_release_mode_zero_cost_clamp():
 
 
 def test_validate_scene_catches_bad_indices():
-    from owl_path_tracer_tpu.models import material as material_mod
-    from owl_path_tracer_tpu.models.camera import make_camera
-    from owl_path_tracer_tpu.models.scene import scene_from_arrays
-    from owl_path_tracer_tpu.utils.parser import CameraDesc
+    from owl_path_tracer.models import material as material_mod
+    from owl_path_tracer.models.camera import make_camera
+    from owl_path_tracer.models.scene import scene_from_arrays
+    from owl_path_tracer.utils.parser import CameraDesc
 
     mat = material_mod.single()
     v = np.asarray([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)

@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from owl_path_tracer_tpu.models import material as material_mod
-from owl_path_tracer_tpu.models.camera import make_camera
-from owl_path_tracer_tpu.models.scene import RenderSettings, scene_from_arrays
-from owl_path_tracer_tpu.render import diff as diff_mod
-from owl_path_tracer_tpu.utils.parser import CameraDesc
+from owl_path_tracer.models import material as material_mod
+from owl_path_tracer.models.camera import make_camera
+from owl_path_tracer.models.scene import RenderSettings, scene_from_arrays
+from owl_path_tracer.render import diff as diff_mod
+from owl_path_tracer.utils.parser import CameraDesc
 from test_integrator import make_sphere_mesh
 
 
@@ -182,7 +182,7 @@ def test_grad_camera_fd():
 def test_grad_materials_through_fused2():
     """fused2 stop-gradients hit records; material gradients through it must
     equal the brute-traversal gradients (hit geometry is parameter-free)."""
-    from owl_path_tracer_tpu.ops.fused2 import build_fused2
+    from owl_path_tracer.ops.fused2 import build_fused2
 
     scene = diffuse_sphere_scene()
     accel = build_fused2(
@@ -230,8 +230,8 @@ def test_car_recovery_smoke():
     import generate
 
     generate.ensure_assets()
-    from owl_path_tracer_tpu.models.scene import compile_scene
-    from owl_path_tracer_tpu.render import film as film_mod
+    from owl_path_tracer.models.scene import compile_scene
+    from owl_path_tracer.render import film as film_mod
 
     scene = compile_scene(
         pathlib.Path(__file__).resolve().parents[1] / "assets", "car", (24, 24)
@@ -258,7 +258,7 @@ def test_car_recovery_smoke():
     init = mats._replace(base_color=mats.base_color.at[gi].set(jnp.asarray([0.2, 0.2, 0.2])))
     # optimize ONLY the glass row (Adam's unit-scale steps would otherwise
     # push every material's color around on gradient noise)
-    from owl_path_tracer_tpu.models.material import Materials
+    from owl_path_tracer.models.material import Materials
 
     mask = Materials(*[jnp.zeros_like(getattr(mats, f)) for f in Materials._fields])
     mask = mask._replace(base_color=mask.base_color.at[gi].set(1.0))
@@ -275,7 +275,7 @@ def test_grad_camera_through_fused2_fd():
     fused2_closest_hit_diff): FD-validated on the same smooth all-sphere view
     as test_grad_camera_fd, and consistent with the brute-traversal camera
     gradient.  Closes the render/diff.py round-3 slow-path caveat."""
-    from owl_path_tracer_tpu.ops.fused2 import build_fused2
+    from owl_path_tracer.ops.fused2 import build_fused2
 
     mat = material_mod.single(base_color=(0.6, 0.4, 0.3), roughness=0.7, specular=0.0)
     v, idx, n = make_sphere_mesh(np.zeros(3), 2.0)

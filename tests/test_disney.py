@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from owl_path_tracer_tpu.ops import disney, rng
-from owl_path_tracer_tpu.models import material as material_mod
+from owl_path_tracer.ops import disney, rng
+from owl_path_tracer.models import material as material_mod
 import oracle_disney as oracle
 
 

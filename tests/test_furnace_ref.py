@@ -30,9 +30,9 @@ import pathlib
 import numpy as np
 import pytest
 
-from owl_path_tracer_tpu.models import material as material_mod
-from owl_path_tracer_tpu.models.scene import RenderSettings
-from owl_path_tracer_tpu.render import film as film_mod
+from owl_path_tracer.models import material as material_mod
+from owl_path_tracer.models.scene import RenderSettings
+from owl_path_tracer.render import film as film_mod
 
 from test_integrator import sphere_scene
 
@@ -44,10 +44,10 @@ DISK = 6  # half-width of the center window (pixels)
 
 def ref_center(name: str) -> float:
     """Mean linear radiance over the central window of a reference PNG."""
-    from PIL import Image
+    from owl_path_tracer.utils.image import read_png
 
     im = np.asarray(
-        Image.open(REF_DIR / f"{name}.png").convert("RGB"), dtype=np.float32
+        read_png(REF_DIR / f"{name}.png")[..., :3], dtype=np.float32
     ) / 255.0
     h, w, _ = im.shape
     ch, cw = h // 2, w // 2
@@ -63,7 +63,7 @@ def our_center(mat, parity: bool, depth: int = 3, spp: int = 24) -> float:
     )
     img = film_mod.render_image(scene, s, pixel_chunk=1024)
     # quantize exactly like the reference PNGs were stored (make_rgba, no gamma)
-    from owl_path_tracer_tpu.utils.image import quantize_rgba8
+    from owl_path_tracer.utils.image import quantize_rgba8
 
     q = quantize_rgba8(img)[..., :3].astype(np.float32) / 255.0
     c = SIZE // 2

@@ -1,12 +1,13 @@
-"""Fused traversal v2 (ops/fused2.py): interpret-mode correctness vs the
-exact intersectors, attribute-replay payloads, any-hit semantics."""
+"""Fused traversal kernel (ops/fused2.py): interpret-mode correctness vs
+the exact intersectors, attribute-replay payloads, any-hit semantics, and
+the kernel's lowering for the GPU (Triton), checked on the CPU."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from owl_path_tracer_tpu.ops import cluster as cl
-from owl_path_tracer_tpu.ops import fused2 as f2
-from owl_path_tracer_tpu.ops.intersect import closest_hit_brute
+from owl_path_tracer.ops import cluster as cl
+from owl_path_tracer.ops import fused2 as f2
+from owl_path_tracer.ops.intersect import closest_hit_brute
 
 
 def _soup(n_tris=3000, seed=0, spread=4.0):
@@ -27,7 +28,7 @@ def setup():
     tri_mat = r.integers(0, 5, len(idx)).astype(np.int32)
     fb = f2.build_fused2(
         verts, idx, cluster_size=64,
-        normals=normals, texcoords=texcoords, tri_mat=tri_mat, mxu=False,
+        normals=normals, texcoords=texcoords, tri_mat=tri_mat,
     )
     n = 512
     o = jnp.asarray(r.uniform(-6, 6, (n, 3)).astype(np.float32))
@@ -48,7 +49,7 @@ def test_matches_cluster_exact(setup):
     CHOICE (tri) must still match exactly."""
     fb, verts, idx, o, d, r = setup
     ref = cl.cluster_closest_hit(o, d, fb.cluster)
-    rec, _ = f2.fused2_closest_hit(o, d, fb, interpret=True, sort=False)
+    rec, _ = f2.fused2_closest_hit(o, d, fb, sort=False)
     np.testing.assert_array_equal(np.asarray(rec.tri), np.asarray(ref.tri))
     np.testing.assert_allclose(
         np.asarray(rec.t), np.asarray(ref.t), rtol=5e-6, atol=1e-7
@@ -60,42 +61,30 @@ def test_matches_cluster_exact(setup):
 
 def test_sorted_equals_unsorted(setup):
     fb, verts, idx, o, d, r = setup
-    a, blob_a = f2.fused2_closest_hit(o, d, fb, interpret=True, sort=False)
-    b, blob_b = f2.fused2_closest_hit(o, d, fb, interpret=True, sort=True)
+    a, blob_a = f2.fused2_closest_hit(o, d, fb, sort=False)
+    b, blob_b = f2.fused2_closest_hit(o, d, fb, sort=True)
     np.testing.assert_array_equal(np.asarray(a.tri), np.asarray(b.tri))
     np.testing.assert_array_equal(np.asarray(a.t), np.asarray(b.t))
     np.testing.assert_array_equal(np.asarray(blob_a), np.asarray(blob_b))
 
 
 def test_cid2_sorted_equals_unsorted(setup):
-    """The candidate-cluster (cid2) sort -- production for enclosed scenes
-    since round 5 -- must only permute block composition, never results.
-    Covers closest-hit, occlusion, and the mixed sweep under a forced
-    OWLPT_SORT_MODE=cid2 (auto_sort_mode would pick per scene)."""
+    """The candidate-cluster (cid2) sort -- the enclosed-scene sort -- must
+    only permute block composition, never results.  Covers closest-hit and
+    occlusion under a forced SORT_MODE=cid2 (auto_sort_mode would pick per
+    scene)."""
     fb, verts, idx, o, d, r = setup
     old = f2.SORT_MODE
     try:
         f2.SORT_MODE = "cid2"
-        a, blob_a = f2.fused2_closest_hit(o, d, fb, interpret=True, sort=False)
-        b, blob_b = f2.fused2_closest_hit(o, d, fb, interpret=True, sort=True)
+        a, blob_a = f2.fused2_closest_hit(o, d, fb, sort=False)
+        b, blob_b = f2.fused2_closest_hit(o, d, fb, sort=True)
         np.testing.assert_array_equal(np.asarray(a.tri), np.asarray(b.tri))
         np.testing.assert_array_equal(np.asarray(a.t), np.asarray(b.t))
         np.testing.assert_array_equal(np.asarray(blob_a), np.asarray(blob_b))
-        occ_a = f2.fused2_occluded(o, d, fb, t_max=2.0, interpret=True, sort=False)
-        occ_b = f2.fused2_occluded(o, d, fb, t_max=2.0, interpret=True, sort=True)
+        occ_a = f2.fused2_occluded(o, d, fb, t_max=2.0, sort=False)
+        occ_b = f2.fused2_occluded(o, d, fb, t_max=2.0, sort=True)
         np.testing.assert_array_equal(np.asarray(occ_a), np.asarray(occ_b))
-        n = o.shape[0]
-        shadow = np.zeros((n,), bool)
-        shadow[::3] = True
-        tmax = jnp.full((n,), 1e10, jnp.float32)
-        ra, ba, oa = f2.fused2_sweep_mixed(
-            o, d, tmax, jnp.asarray(shadow), fb, interpret=True, sort=False)
-        rb, bb, ob = f2.fused2_sweep_mixed(
-            o, d, tmax, jnp.asarray(shadow), fb, interpret=True, sort=True)
-        np.testing.assert_array_equal(
-            np.asarray(ra.tri)[~shadow], np.asarray(rb.tri)[~shadow])
-        np.testing.assert_array_equal(
-            np.asarray(oa)[shadow], np.asarray(ob)[shadow])
     finally:
         f2.SORT_MODE = old
 
@@ -103,7 +92,7 @@ def test_cid2_sorted_equals_unsorted(setup):
 def test_matches_brute(setup):
     fb, verts, idx, o, d, r = setup
     ref = closest_hit_brute(o, d, jnp.asarray(verts), jnp.asarray(idx))
-    rec, _ = f2.fused2_closest_hit(o, d, fb, interpret=True)
+    rec, _ = f2.fused2_closest_hit(o, d, fb)
     np.testing.assert_array_equal(np.asarray(rec.tri), np.asarray(ref.tri))
     hit = np.asarray(ref.tri) >= 0
     np.testing.assert_allclose(
@@ -113,7 +102,7 @@ def test_matches_brute(setup):
 
 def test_attr_blob_matches_table(setup):
     fb, verts, idx, o, d, r = setup
-    rec, blob = f2.fused2_closest_hit(o, d, fb, interpret=True)
+    rec, blob = f2.fused2_closest_hit(o, d, fb)
     hit = np.asarray(rec.tri) >= 0
     want = np.asarray(fb.attr_table)[:, :16][np.asarray(rec.tri)[hit]]
     np.testing.assert_array_equal(np.asarray(blob)[hit], want)
@@ -124,20 +113,20 @@ def test_attr_blob_matches_table(setup):
 def test_any_hit_occlusion(setup):
     fb, verts, idx, o, d, r = setup
     ref = cl.cluster_occluded(o, d, fb.cluster)
-    occ = f2.fused2_occluded(o, d, fb, interpret=True)
+    occ = f2.fused2_occluded(o, d, fb)
     np.testing.assert_array_equal(np.asarray(occ), np.asarray(ref))
 
 
 def test_per_ray_tmax(setup):
     fb, verts, idx, o, d, r = setup
-    rec, _ = f2.fused2_closest_hit(o, d, fb, interpret=True)
+    rec, _ = f2.fused2_closest_hit(o, d, fb)
     hit = np.asarray(rec.tri) >= 0
     # cap t_max just below each ray's closest hit: ray must now miss it
     tm = np.where(hit, np.asarray(rec.t) * 0.99, 1e10).astype(np.float32)
-    rec2, _ = f2.fused2_closest_hit(o, d, fb, t_max=jnp.asarray(tm), interpret=True)
+    rec2, _ = f2.fused2_closest_hit(o, d, fb, t_max=jnp.asarray(tm))
     t2 = np.asarray(rec2.t)
     assert ((t2[hit] < np.asarray(rec.t)[hit] * 0.99) | (np.asarray(rec2.tri)[hit] < 0)).all()
-    occ = f2.fused2_occluded(o, d, fb, t_max=jnp.asarray(tm), interpret=True)
+    occ = f2.fused2_occluded(o, d, fb, t_max=jnp.asarray(tm))
     occ_ref = cl.cluster_occluded(o, d, fb.cluster, t_max=jnp.asarray(tm))
     np.testing.assert_array_equal(np.asarray(occ), np.asarray(occ_ref))
 
@@ -145,14 +134,14 @@ def test_per_ray_tmax(setup):
 def test_small_scene_and_padding():
     # fewer tris than one cluster + ray count not a block multiple
     verts, idx, r = _soup(n_tris=10, seed=3)
-    fb = f2.build_fused2(verts, idx, cluster_size=64, mxu=False)
+    fb = f2.build_fused2(verts, idx, cluster_size=64)
     n = 37
     o = jnp.asarray(r.uniform(-6, 6, (n, 3)).astype(np.float32))
     d = r.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     d = jnp.asarray(d)
     ref = closest_hit_brute(o, d, jnp.asarray(verts), jnp.asarray(idx))
-    rec, _ = f2.fused2_closest_hit(o, d, fb, interpret=True)
+    rec, _ = f2.fused2_closest_hit(o, d, fb)
     np.testing.assert_array_equal(np.asarray(rec.tri), np.asarray(ref.tri))
 
 
@@ -160,140 +149,19 @@ def test_overflow_fallback_is_exact(setup):
     """max_steps=1 forces unresolved rays through the XLA fallback."""
     fb, verts, idx, o, d, r = setup
     ref = cl.cluster_closest_hit(o, d, fb.cluster)
-    rec, blob = f2.fused2_closest_hit(o, d, fb, interpret=True, max_steps=1)
+    rec, blob = f2.fused2_closest_hit(o, d, fb, max_steps=1)
     np.testing.assert_array_equal(np.asarray(rec.tri), np.asarray(ref.tri))
     hit = np.asarray(rec.tri) >= 0
     want = np.asarray(fb.attr_table)[:, :16][np.asarray(rec.tri)[hit]]
     np.testing.assert_array_equal(np.asarray(blob)[hit], want)
 
 
-def test_mxu_variant_matches_component(setup):
-    """MXU Moller-Trumbore (one [B,16]x[16,4C] matmul) agrees with the
-    component-form kernel: identical winner triangles (up to rounding at
-    shared edges) and t within 1e-5 relative."""
-    fb, verts, idx, o, d, r = setup  # component layout (mxu=False in setup)
-    fbm = f2.build_fused2(verts, idx, cluster_size=64, mxu=True)
-    a, _ = f2.fused2_closest_hit(o, d, fb, interpret=True)
-    b, _ = f2.fused2_closest_hit(o, d, fbm, interpret=True)
-    same_tri = np.asarray(a.tri) == np.asarray(b.tri)
-    assert same_tri.mean() > 0.995, same_tri.mean()
-    hit = (np.asarray(a.tri) >= 0) & same_tri
-    np.testing.assert_allclose(
-        np.asarray(b.t)[hit], np.asarray(a.t)[hit], rtol=1e-5, atol=1e-6
-    )
-    occ_a = f2.fused2_occluded(o, d, fb, interpret=True)
-    occ_b = f2.fused2_occluded(o, d, fbm, interpret=True)
-    assert (np.asarray(occ_a) == np.asarray(occ_b)).mean() > 0.995
-
-
-@pytest.mark.parametrize("fanout", [1, 2, 4])
-def test_fanout_widths_agree(setup, fanout):
-    """W-wide retirement groups (fanout) are an efficiency knob only: winner
-    triangles, t, payloads, and occlusion must not depend on W."""
-    fb, verts, idx, o, d, r = setup
-    normals = np.asarray(fb.attr_table)[:, :16][:, 0:3]  # unused; rebuild with attrs
-    fbm = f2.build_fused2(
-        verts, idx, cluster_size=64, mxu=True,
-        tri_mat=r.integers(0, 5, len(idx)).astype(np.int32),
-    )
-    base, blob_base = f2.fused2_closest_hit(o, d, fbm, interpret=True, fanout=1)
-    rec, blob = f2.fused2_closest_hit(o, d, fbm, interpret=True, fanout=fanout)
-    np.testing.assert_array_equal(np.asarray(rec.tri), np.asarray(base.tri))
-    np.testing.assert_array_equal(np.asarray(rec.t), np.asarray(base.t))
-    np.testing.assert_array_equal(np.asarray(blob), np.asarray(blob_base))
-    occ1 = f2.fused2_occluded(o, d, fbm, interpret=True, fanout=1)
-    occw = f2.fused2_occluded(o, d, fbm, interpret=True, fanout=fanout)
-    np.testing.assert_array_equal(np.asarray(occ1), np.asarray(occw))
-
-
-def test_mixed_sweep_matches_separate(setup):
-    """ONE mixed sweep (per-lane any-hit, round 4) == the separate
-    closest-hit and occlusion sweeps, including the shadow lanes' t_max
-    (light-distance) semantics."""
-    fb, verts, idx, o, d, r = setup
-    n = o.shape[0]
-    shadow = jnp.asarray(r.random(n) < 0.5)
-    tmax = jnp.where(shadow, jnp.asarray(r.uniform(2.0, 20.0, n), jnp.float32), 1e10)
-    rec_m, blob_m, occ_m = f2.fused2_sweep_mixed(
-        o, d, tmax, shadow, fb, interpret=True
-    )
-    rec_s, blob_s = f2.fused2_closest_hit(o, d, fb, t_max=tmax, interpret=True)
-    occ_s = f2.fused2_occluded(o, d, fb, t_max=tmax, interpret=True)
-    ns = ~np.asarray(shadow)
-    np.testing.assert_array_equal(np.asarray(rec_m.tri)[ns], np.asarray(rec_s.tri)[ns])
-    np.testing.assert_allclose(
-        np.asarray(rec_m.t)[ns], np.asarray(rec_s.t)[ns], rtol=1e-6
-    )
-    np.testing.assert_array_equal(np.asarray(blob_m)[ns], np.asarray(blob_s)[ns])
-    sh = np.asarray(shadow)
-    np.testing.assert_array_equal(np.asarray(occ_m)[sh], np.asarray(occ_s)[sh])
-    # sorted path too (the production configuration)
-    rec_m2, _, occ_m2 = f2.fused2_sweep_mixed(
-        o, d, tmax, shadow, fb, interpret=True, sort=True
-    )
-    np.testing.assert_array_equal(np.asarray(rec_m2.tri)[ns], np.asarray(rec_s.tri)[ns])
-    np.testing.assert_array_equal(np.asarray(occ_m2)[sh], np.asarray(occ_s)[sh])
-
-
-def test_bf16_planes_mode(setup):
-    """fused2-bf16 (production default on hardware): tri ids and hit
-    geometry come from the f32 attrs planes, so winners agree with the f32
-    build except at near-ties, and agreed winners report IDENTICAL f32
-    (t,u,v) and payload (the winner-geometry replay reads the same f32
-    rows).  On hardware the two modes are bit-identical end-to-end
-    (docs/PERF.md bf16_quality probe); on CPU the f32 MT matmul is exact, so
-    near-tie winners can differ -- the contract here is agreement + exact
-    replay for agreed winners."""
-    fb, verts, idx, o, d, r = setup
-    fb32 = f2.build_fused2(verts, idx, cluster_size=64, mxu=True)
-    fb16 = f2.build_fused2(verts, idx, cluster_size=64, mxu=True,
-                           plane_dtype=jnp.bfloat16)
-    a, blob_a = f2.fused2_closest_hit(o, d, fb32, interpret=True)
-    b, blob_b = f2.fused2_closest_hit(o, d, fb16, interpret=True)
-    same = np.asarray(a.tri) == np.asarray(b.tri)
-    # the random soup is adversarial: bf16-rounded pruning products reject
-    # ~5% of its edge-grazing hits (the next soup intersection is then far
-    # away, so these are NOT near-ties).  On hardware this is NOT a bf16
-    # regression -- the f32 mode's default-precision matmul rounds the same
-    # products identically (bit-identical images, docs/PERF.md); the CPU f32
-    # path is simply more exact than either hardware mode.  Closed meshes
-    # barely show it: see the sphere check below.
-    assert same.mean() > 0.9, same.mean()
-    hit = (np.asarray(a.tri) >= 0) & same
-    np.testing.assert_array_equal(np.asarray(b.t)[hit], np.asarray(a.t)[hit])
-    np.testing.assert_array_equal(np.asarray(b.uv)[hit], np.asarray(a.uv)[hit])
-    np.testing.assert_array_equal(np.asarray(blob_b)[hit], np.asarray(blob_a)[hit])
-    # any-hit occlusion agrees (no attrs involved)
-    occ_a = f2.fused2_occluded(o, d, fb32, interpret=True)
-    occ_b = f2.fused2_occluded(o, d, fb16, interpret=True)
-    assert (np.asarray(occ_a) == np.asarray(occ_b)).mean() > 0.98
-
-    # closed mesh (the realistic geometry class): near-total agreement
-    from test_integrator import sphere_scene
-    from owl_path_tracer_tpu.models import material as material_mod
-
-    sc = sphere_scene(material_mod.single())
-    sv, si = np.asarray(sc.vertices), np.asarray(sc.tri_idx)
-    s32 = f2.build_fused2(sv, si, cluster_size=64, mxu=True)
-    s16 = f2.build_fused2(sv, si, cluster_size=64, mxu=True,
-                          plane_dtype=jnp.bfloat16)
-    ns = 512
-    os_ = jnp.asarray(r.uniform(-3, 3, (ns, 3)).astype(np.float32))
-    ds_ = r.normal(size=(ns, 3)).astype(np.float32)
-    ds_ /= np.linalg.norm(ds_, axis=-1, keepdims=True)
-    ds_ = jnp.asarray(ds_)
-    ra, _ = f2.fused2_closest_hit(os_, ds_, s32, interpret=True)
-    rb, _ = f2.fused2_closest_hit(os_, ds_, s16, interpret=True)
-    agree = np.asarray(ra.tri) == np.asarray(rb.tri)
-    assert agree.mean() > 0.99, agree.mean()
-
-
 def test_multi_tile_phase_a():
-    """K > tile_k engages the gated multi-tile phase A (round 4: whole-tile
-    AABB tests skip dead [B,tile_k] slabs for dragon8-scale scenes).  Must
-    stay exact vs the cluster intersector across init AND refresh paths."""
+    """Many clusters: the frontier slab test runs over many [B, KT] tiles and
+    the retirement loop passes several per-ray-cap refreshes.  Must stay
+    exact vs the cluster intersector across init AND refresh paths."""
     verts, idx, r = _soup(n_tris=20000, seed=7, spread=8.0)
-    fb = f2.build_fused2(verts, idx, cluster_size=16, mxu=True)
+    fb = f2.build_fused2(verts, idx, cluster_size=16)
     assert fb.num_clusters > 1024, fb.num_clusters  # really multi-tile
     n = 512
     o = jnp.asarray(r.uniform(-10, 10, (n, 3)).astype(np.float32))
@@ -301,57 +169,130 @@ def test_multi_tile_phase_a():
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     d = jnp.asarray(d)
     ref = cl.cluster_closest_hit(o, d, fb.cluster)
-    rec, _ = f2.fused2_closest_hit(o, d, fb, interpret=True)
+    rec, _ = f2.fused2_closest_hit(o, d, fb)
     np.testing.assert_array_equal(np.asarray(rec.tri), np.asarray(ref.tri))
-    occ = f2.fused2_occluded(o, d, fb, interpret=True)
+    occ = f2.fused2_occluded(o, d, fb)
     occ_ref = cl.cluster_occluded(o, d, fb.cluster)
     np.testing.assert_array_equal(np.asarray(occ), np.asarray(occ_ref))
 
 
 def test_make_accel_adaptive_cluster_size():
-    """make_accel picks the fat-cluster size per scene: small OPEN scenes
-    halve C until K >= 64 (morton-sort pruning granularity; measured +14%
-    on round-4 cornell), large scenes keep C=512 -- and ENCLOSED scenes
-    (auto_sort_mode -> cid2) keep C=512 at ANY size since round 5 (the
-    candidate sort restores per-ray-scale pruning; cornell 10.87 -> 11.20).
-    The random soup used here is area-dense (enclosure proxy fires), so the
-    morton branch is pinned via the env override."""
-    import os as _os
-
-    from owl_path_tracer_tpu.ops import fused2 as _f2
-    import jax.numpy as _jnp
-
-    from owl_path_tracer_tpu.render import film as film_mod
-
-    class _S:  # minimal stand-in with the fields make_accel touches
-        pass
+    """make_accel picks the cluster size per scene: CLUSTER_SIZE for large
+    scenes, halved for small ones until K >= 64 clusters (floor 32) so the
+    block frontier keeps pruning granularity.  The choice does not depend on
+    the wave-sort mode."""
+    from owl_path_tracer.models import material as material_mod
+    from owl_path_tracer.render import film as film_mod
+    from test_integrator import sphere_scene  # reuse a real Scene shell
 
     def fake_scene(n_tris):
         verts, idx, r = _soup(n_tris=n_tris, seed=1)
-        import types
-
-        from owl_path_tracer_tpu.models import material as material_mod
-        from test_integrator import sphere_scene  # reuse a real Scene shell
-
         sc = sphere_scene(material_mod.single())
         return sc._replace(
-            vertices=_jnp.asarray(verts), tri_idx=_jnp.asarray(idx),
-            normals=_jnp.zeros((len(verts), 3), _jnp.float32),
-            texcoords=_jnp.zeros((len(verts), 2), _jnp.float32),
-            tri_mat=_jnp.zeros((n_tris,), _jnp.int32),
+            vertices=jnp.asarray(verts), tri_idx=jnp.asarray(idx),
+            normals=jnp.zeros((len(verts), 3), jnp.float32),
+            texcoords=jnp.zeros((len(verts), 2), jnp.float32),
+            tri_mat=jnp.zeros((n_tris,), jnp.int32),
         )
 
-    old = _f2.SORT_MODE
+    assert f2.CLUSTER_SIZE == 256
+    old = f2.SORT_MODE
     try:
-        _f2.SORT_MODE = "morton"  # open-scene branch: the K >= 64 halving
-        small = film_mod.make_accel(fake_scene(2000), "fused2")
-        assert small.cluster_size == 128, small.cluster_size
-        mid = film_mod.make_accel(fake_scene(20000), "fused2")
-        assert mid.cluster_size == 256, mid.cluster_size
-        big = film_mod.make_accel(fake_scene(40000), "fused2")
-        assert big.cluster_size == 512, big.cluster_size
-        _f2.SORT_MODE = "cid2"  # enclosed branch: C stays 512 at any size
-        small2 = film_mod.make_accel(fake_scene(2000), "fused2")
-        assert small2.cluster_size == 512, small2.cluster_size
+        for mode in ("morton", "cid2"):
+            f2.SORT_MODE = mode
+            assert film_mod.make_accel(fake_scene(2000), "fused2").cluster_size == 32
+            assert film_mod.make_accel(fake_scene(8000), "fused2").cluster_size == 64
+            assert film_mod.make_accel(fake_scene(20000), "fused2").cluster_size == 256
     finally:
-        _f2.SORT_MODE = old
+        f2.SORT_MODE = old
+
+
+# ── kernel plumbing: layout, block sizes, backend guard, GPU lowering ──────
+
+
+def test_pack_rays_layout():
+    """[8, N]: rows o(3) d(3) t_max 0, broadcast scalar t_max, detached."""
+    o = jnp.arange(6, dtype=jnp.float32).reshape(2, 3)
+    d = -o
+    rays = np.asarray(f2.pack_rays(o, d, 7.0))
+    assert rays.shape == (8, 2)
+    np.testing.assert_array_equal(rays[0:3], np.asarray(o).T)
+    np.testing.assert_array_equal(rays[3:6], np.asarray(d).T)
+    np.testing.assert_array_equal(rays[6], [7.0, 7.0])
+    np.testing.assert_array_equal(rays[7], [0.0, 0.0])
+
+
+@pytest.mark.parametrize("block", [16, 64])
+def test_block_size_does_not_change_results(setup, block):
+    """Rays per block is an efficiency knob: winners, t and payloads must
+    match the default block (the frontier prunes per block, exactly)."""
+    fb, verts, idx, o, d, r = setup
+    base, blob_base = f2.fused2_closest_hit(o, d, fb)
+    rec, blob = f2.fused2_closest_hit(o, d, fb, block=block)
+    np.testing.assert_array_equal(np.asarray(rec.tri), np.asarray(base.tri))
+    np.testing.assert_array_equal(np.asarray(rec.t), np.asarray(base.t))
+    np.testing.assert_array_equal(np.asarray(blob), np.asarray(blob_base))
+    occ = f2.fused2_occluded(o, d, fb, t_max=2.0, block=block)
+    np.testing.assert_array_equal(
+        np.asarray(occ), np.asarray(f2.fused2_occluded(o, d, fb, t_max=2.0)))
+
+
+def test_raw_sweep_rows(setup):
+    """fused2_traverse's [N, 32] rows: winner cluster/slot locate the tri id
+    in the cluster table, misses report tri -1 and zero payload, and every
+    block of this soup resolves within MAX_STEPS."""
+    fb, verts, idx, o, d, r = setup
+    out = np.asarray(f2.fused2_traverse(o, d, 1e10, fb))
+    assert out.shape == (o.shape[0], 32)
+    hit = out[:, 4] > 0
+    assert hit.any() and (~hit).any()
+    assert (out[:, 5] == 1.0).all()
+    tid = np.asarray(fb.cluster.tri_id)
+    wc, ws = out[hit, 7].astype(int), out[hit, 8].astype(int)
+    np.testing.assert_array_equal(tid[wc, ws], out[hit, 3].astype(int))
+    assert (out[~hit, 3] == -1).all() and (out[~hit, 16:] == 0).all()
+
+
+@pytest.mark.parametrize("backend,expected", [("cpu", True), ("gpu", False), ("rocm", None)])
+def test_interpret_only_on_cpu(monkeypatch, backend, expected):
+    """The interpreter runs only on the CPU; a GPU always gets the compiled
+    kernel; any other backend is refused rather than silently interpreted."""
+    monkeypatch.setattr(f2.jax, "default_backend", lambda: backend)
+    if expected is None:
+        with pytest.raises(NotImplementedError):
+            f2.interpret_mode()
+    else:
+        assert f2.interpret_mode() is expected
+
+
+@pytest.mark.parametrize(
+    "any_hit,with_attrs", [(False, True), (False, False), (True, False)],
+    ids=["closest-hit+attrs", "closest-hit", "any-hit"],
+)
+def test_kernel_lowers_for_cuda(setup, any_hit, with_attrs):
+    """Every kernel mode lowers to Triton for the GPU (no interpreter): the
+    compiled path's primitives are all ones the Pallas Triton lowering
+    supports, found without a card."""
+    fb, verts, idx, o, d, r = setup
+    rays = f2.pack_rays(o, d, 1e10)
+    lowered = f2.sweep.trace(
+        rays, fb, block=f2.BLOCK_RAYS, max_steps=f2.MAX_STEPS,
+        with_attrs=with_attrs, any_hit=any_hit, interpret=False,
+    ).lower(lowering_platforms=("cuda",))
+    text = lowered.as_text()
+    assert "fused2_" in text and "triton" in text.lower()
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_on_gpu(setup, gpu):
+    """On the card: the compiled Triton kernel (never the interpreter) agrees
+    with the XLA cluster intersector on winners and occlusion."""
+    fb, verts, idx, o, d, r = setup
+    assert f2.interpret_mode() is False
+    ref = cl.cluster_closest_hit(o, d, fb.cluster)
+    rec, _ = f2.fused2_closest_hit(o, d, fb)
+    np.testing.assert_array_equal(np.asarray(rec.tri), np.asarray(ref.tri))
+    np.testing.assert_array_equal(
+        np.asarray(f2.fused2_occluded(o, d, fb, t_max=2.0)),
+        np.asarray(cl.cluster_occluded(o, d, fb.cluster, t_max=2.0)),
+    )

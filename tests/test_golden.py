@@ -19,8 +19,8 @@ import pathlib
 import numpy as np
 import pytest
 
-from owl_path_tracer_tpu.models.scene import RenderSettings, compile_scene
-from owl_path_tracer_tpu.render import film as film_mod
+from owl_path_tracer.models.scene import RenderSettings, compile_scene
+from owl_path_tracer.render import film as film_mod
 
 ASSETS = pathlib.Path(__file__).resolve().parents[1] / "assets"
 GOLDENS = pathlib.Path(__file__).resolve().parent / "goldens"

@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from owl_path_tracer_tpu.ops import math as m
+from owl_path_tracer.ops import math as m
 
 
 RNG = np.random.default_rng(7)

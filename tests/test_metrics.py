@@ -2,11 +2,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from owl_path_tracer_tpu.render import metrics as metrics_mod
-from owl_path_tracer_tpu.render import integrator, film as film_mod
-from owl_path_tracer_tpu.models.scene import RenderSettings
+from owl_path_tracer.render import metrics as metrics_mod
+from owl_path_tracer.render import integrator, film as film_mod
+from owl_path_tracer.models.scene import RenderSettings
 from test_integrator import sphere_scene
-from owl_path_tracer_tpu.models import material as material_mod
+from owl_path_tracer.models import material as material_mod
 
 
 def test_wavefront_stats_occupancy_decays():

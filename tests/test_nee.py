@@ -4,12 +4,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from owl_path_tracer_tpu.models import lights as lights_mod
-from owl_path_tracer_tpu.models import material as material_mod
-from owl_path_tracer_tpu.models.camera import make_camera
-from owl_path_tracer_tpu.models.scene import RenderSettings, scene_from_arrays
-from owl_path_tracer_tpu.render import film as film_mod
-from owl_path_tracer_tpu.utils.parser import CameraDesc
+from owl_path_tracer.models import lights as lights_mod
+from owl_path_tracer.models import material as material_mod
+from owl_path_tracer.models.camera import make_camera
+from owl_path_tracer.models.scene import RenderSettings, scene_from_arrays
+from owl_path_tracer.render import film as film_mod
+from owl_path_tracer.utils.parser import CameraDesc
 import jax
 
 

@@ -37,10 +37,10 @@ import pathlib
 import numpy as np
 import pytest
 
-from owl_path_tracer_tpu.models import material as material_mod
-from owl_path_tracer_tpu.models.scene import RenderSettings
-from owl_path_tracer_tpu.render import film as film_mod
-from owl_path_tracer_tpu.utils.image import quantize_rgba8
+from owl_path_tracer.models import material as material_mod
+from owl_path_tracer.models.scene import RenderSettings
+from owl_path_tracer.render import film as film_mod
+from owl_path_tracer.utils.image import quantize_rgba8
 
 from test_integrator import sphere_scene
 
@@ -48,16 +48,17 @@ ASSETS = pathlib.Path("/root/reference/thesis/assets")
 
 
 def _load(rel):
-    from PIL import Image
+    from owl_path_tracer.utils.image import read_png
 
     return np.asarray(
-        Image.open(ASSETS / rel).convert("RGB"), dtype=np.float32
+        read_png(ASSETS / rel)[..., :3], dtype=np.float32
     ) / 255.0
 
 
 # ── what the reference pairs themselves show (asset-integrity pins) ────────
 
 
+@pytest.mark.skipif(not ASSETS.exists(), reason="reference thesis assets absent")
 def test_clearcoat_ab_pair_signature():
     """A/B differ only on the object, A brighter, background identical."""
     a = _load("pdf-comparison/clearcoat-pdf-A.png")
@@ -71,6 +72,7 @@ def test_clearcoat_ab_pair_signature():
     assert 0.005 < rel < 0.10, (ca, cb, rel)
 
 
+@pytest.mark.skipif(not ASSETS.exists(), reason="reference thesis assets absent")
 def test_material_issues_pair_ratio():
     """wrong/correct object ratio ~2.6x; consistent with the furnace-recorded
     uncoupled-glass surplus (1.0/0.421 = 2.37x)."""

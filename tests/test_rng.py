@@ -3,7 +3,7 @@ uint32 model of the reference stream (random.hpp:46-69)."""
 import numpy as np
 import jax.numpy as jnp
 
-from owl_path_tracer_tpu.ops import rng
+from owl_path_tracer.ops import rng
 
 M32 = 0xFFFFFFFF
 
@@ -63,7 +63,7 @@ def test_next_f32_n_chains():
 
 
 def test_threefry_helpers():
-    from owl_path_tracer_tpu.ops.rng import threefry_per_lane, threefry_uniform
+    from owl_path_tracer.ops.rng import threefry_per_lane, threefry_uniform
 
     u = threefry_uniform(7, (1000,))
     v = np.asarray(u)

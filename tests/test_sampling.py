@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 from scipy import stats  # scipy ships with the jax test stack
 
-from owl_path_tracer_tpu.ops import sampling as sm
-from owl_path_tracer_tpu.ops import math as m
+from owl_path_tracer.ops import sampling as sm
+from owl_path_tracer.ops import math as m
 
 N = 200_000
 

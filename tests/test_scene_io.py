@@ -5,11 +5,11 @@ import pathlib
 import numpy as np
 import pytest
 
-from owl_path_tracer_tpu.models.camera import make_camera
-from owl_path_tracer_tpu.models.scene import compile_scene
-from owl_path_tracer_tpu.utils import image as img_mod
-from owl_path_tracer_tpu.utils import obj as obj_mod
-from owl_path_tracer_tpu.utils import parser
+from owl_path_tracer.models.camera import make_camera
+from owl_path_tracer.models.scene import compile_scene
+from owl_path_tracer.utils import image as img_mod
+from owl_path_tracer.utils import obj as obj_mod
+from owl_path_tracer.utils import parser
 
 ASSETS = pathlib.Path(__file__).resolve().parents[1] / "assets"
 

@@ -7,9 +7,9 @@ import pathlib
 import numpy as np
 import pytest
 
-from owl_path_tracer_tpu.models.scene import RenderSettings, compile_scene
-from owl_path_tracer_tpu.ops.debug import validate_scene
-from owl_path_tracer_tpu.render import film as film_mod
+from owl_path_tracer.models.scene import RenderSettings, compile_scene
+from owl_path_tracer.ops.debug import validate_scene
+from owl_path_tracer.render import film as film_mod
 
 ASSETS = pathlib.Path(__file__).resolve().parents[1] / "assets"
 
@@ -60,7 +60,7 @@ def test_mitsuba_material_recovery_smoke():
     (tiny res / few steps -- the full run is tools/recover_demo.py)."""
     import jax.numpy as jnp
 
-    from owl_path_tracer_tpu.render import diff as diff_mod
+    from owl_path_tracer.render import diff as diff_mod
 
     scene = compile_scene(ASSETS, "mitsuba", (12, 12))
     s = RenderSettings(width=12, height=12, max_samples=2, max_path_depth=2,

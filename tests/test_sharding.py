@@ -4,12 +4,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from owl_path_tracer_tpu.models import material as material_mod
-from owl_path_tracer_tpu.models.camera import make_camera
-from owl_path_tracer_tpu.models.scene import RenderSettings, scene_from_arrays
-from owl_path_tracer_tpu.parallel import shard as shard_mod
-from owl_path_tracer_tpu.render import film as film_mod
-from owl_path_tracer_tpu.utils.parser import CameraDesc
+from owl_path_tracer.models import material as material_mod
+from owl_path_tracer.models.camera import make_camera
+from owl_path_tracer.models.scene import RenderSettings, scene_from_arrays
+from owl_path_tracer.parallel import shard as shard_mod
+from owl_path_tracer.render import film as film_mod
+from owl_path_tracer.utils.parser import CameraDesc
 from test_integrator import make_sphere_mesh
 
 
@@ -52,12 +52,12 @@ def test_sharded_render_nee_and_cluster():
 
 
 def test_sharded_grads_match_single_chip():
-    from owl_path_tracer_tpu.render import diff as diff_mod
+    from owl_path_tracer.render import diff as diff_mod
 
     scene = small_scene()
     mesh = shard_mod.make_pixel_mesh()
     px = film_mod._pixel_grid(16, 16)
-    from owl_path_tracer_tpu.ops import rng as rng_mod
+    from owl_path_tracer.ops import rng as rng_mod
     state = np.asarray(rng_mod.seed(jnp.asarray(px[:, 0]), jnp.asarray(px[:, 1])))
     target = jnp.zeros((256, 3))
 
@@ -85,7 +85,7 @@ def test_sharded_wavefront_matches_single_chip():
     shard_map: per-(pixel,sample) RNG streams are work-id-determined, so the
     sharded render equals the single-chip wavefront render up to f32
     film-summation order."""
-    from owl_path_tracer_tpu.render.wavefront import render_image_wavefront
+    from owl_path_tracer.render.wavefront import render_image_wavefront
 
     scene = small_scene()
     mesh = shard_mod.make_pixel_mesh()
@@ -100,7 +100,7 @@ def test_sharded_wavefront_matches_single_chip():
 
 
 def test_sharded_wavefront_cluster_nee():
-    from owl_path_tracer_tpu.render.wavefront import render_image_wavefront
+    from owl_path_tracer.render.wavefront import render_image_wavefront
     import dataclasses
 
     scene = small_scene()
@@ -117,7 +117,7 @@ def test_sharded_wavefront_cluster_nee():
 def test_sharded_wavefront_fused2_smoke():
     """fused2 Pallas traversal under shard_map (interpret mode on the CPU
     mesh): must run and agree with the sharded cluster render."""
-    from owl_path_tracer_tpu.render.wavefront import render_image_wavefront
+    from owl_path_tracer.render.wavefront import render_image_wavefront
 
     scene = small_scene()
     accel = film_mod.make_accel(scene, "fused2", cluster_size=64)
@@ -139,7 +139,7 @@ def test_sharded_wavefront_sample_split_matches_and_balances():
     concentrated -- every chip sees the same pixel distribution."""
     import dataclasses
 
-    from owl_path_tracer_tpu.render.wavefront import render_image_wavefront
+    from owl_path_tracer.render.wavefront import render_image_wavefront
 
     scene = small_scene()
     s = dataclasses.replace(SETTINGS, max_samples=8)

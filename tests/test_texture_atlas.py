@@ -3,7 +3,7 @@ their own true (h,w), not the padded atlas extent (round-1 VERDICT weak #4)."""
 import numpy as np
 import jax.numpy as jnp
 
-from owl_path_tracer_tpu.ops import texture as tex
+from owl_path_tracer.ops import texture as tex
 
 
 def _atlas():
@@ -45,7 +45,7 @@ def test_scene_carries_true_extents():
     import generate
 
     generate.ensure_assets()
-    from owl_path_tracer_tpu.models.scene import compile_scene
+    from owl_path_tracer.models.scene import compile_scene
 
     scene = compile_scene("assets", "cube", (32, 32))
     hw = np.asarray(scene.tex_hw)

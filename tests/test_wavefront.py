@@ -2,10 +2,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from owl_path_tracer_tpu.models import material as material_mod
-from owl_path_tracer_tpu.models.scene import RenderSettings
-from owl_path_tracer_tpu.render import film as film_mod
-from owl_path_tracer_tpu.render import wavefront as wf
+from owl_path_tracer.models import material as material_mod
+from owl_path_tracer.models.scene import RenderSettings
+from owl_path_tracer.render import film as film_mod
+from owl_path_tracer.render import wavefront as wf
 from test_integrator import sphere_scene
 
 
@@ -53,7 +53,7 @@ def test_spawn_rng_streams_do_not_collide():
     all streams over a 256-pixel x 16-sample grid must be distinct."""
     import jax.numpy as jnp
     import numpy as np
-    from owl_path_tracer_tpu.ops import rng as rng_mod
+    from owl_path_tracer.ops import rng as rng_mod
 
     pixels = jnp.arange(256, dtype=jnp.uint32).repeat(16)
     samples = jnp.tile(jnp.arange(16, dtype=jnp.uint32), 256)
@@ -71,12 +71,12 @@ def test_strided_film_matches_global_queue():
     work-id-determined, so only f32 film-summation order differs."""
     import numpy as np
     import jax.numpy as jnp
-    from owl_path_tracer_tpu.render.wavefront import render_image_wavefront
+    from owl_path_tracer.render.wavefront import render_image_wavefront
     from test_integrator import make_sphere_mesh
-    from owl_path_tracer_tpu.models import material as material_mod
-    from owl_path_tracer_tpu.models.camera import make_camera
-    from owl_path_tracer_tpu.models.scene import RenderSettings, scene_from_arrays
-    from owl_path_tracer_tpu.utils.parser import CameraDesc
+    from owl_path_tracer.models import material as material_mod
+    from owl_path_tracer.models.camera import make_camera
+    from owl_path_tracer.models.scene import RenderSettings, scene_from_arrays
+    from owl_path_tracer.utils.parser import CameraDesc
 
     mat = material_mod.single(base_color=(0.7, 0.5, 0.3), roughness=0.8)
     v, idx, n = make_sphere_mesh(np.zeros(3), 1.0)
@@ -96,12 +96,12 @@ def test_windowed_film_banking_matches_scatter():
     """The one-hot-matmul window banking must equal the scatter path: same
     work items -> same per-item radiance; only f32 sum order differs."""
     import numpy as np
-    from owl_path_tracer_tpu.render.wavefront import render_image_wavefront
+    from owl_path_tracer.render.wavefront import render_image_wavefront
     from test_integrator import make_sphere_mesh
-    from owl_path_tracer_tpu.models import material as material_mod
-    from owl_path_tracer_tpu.models.camera import make_camera
-    from owl_path_tracer_tpu.models.scene import RenderSettings, scene_from_arrays
-    from owl_path_tracer_tpu.utils.parser import CameraDesc
+    from owl_path_tracer.models import material as material_mod
+    from owl_path_tracer.models.camera import make_camera
+    from owl_path_tracer.models.scene import RenderSettings, scene_from_arrays
+    from owl_path_tracer.utils.parser import CameraDesc
 
     mat = material_mod.single(base_color=(0.6, 0.4, 0.3), roughness=0.7)
     v, idx, n = make_sphere_mesh(np.zeros(3), 1.0)
@@ -118,17 +118,17 @@ def test_windowed_film_banking_matches_scatter():
 
 
 def test_sorted_render_matches_unsorted():
-    """The per-wave coherence sort (fused2_sort, production default) must
+    """The per-wave coherence sort (fused2_sort, the benchmark default) must
     render the same image as the unsorted path: the sort+unsort permutation
     is semantically the identity, so only f32 sum order differs."""
     import numpy as np
-    from owl_path_tracer_tpu.ops.fused2 import build_fused2_scene
-    from owl_path_tracer_tpu.render.wavefront import render_image_wavefront
+    from owl_path_tracer.ops.fused2 import build_fused2_scene
+    from owl_path_tracer.render.wavefront import render_image_wavefront
     from test_integrator import make_sphere_mesh
-    from owl_path_tracer_tpu.models import material as material_mod
-    from owl_path_tracer_tpu.models.camera import make_camera
-    from owl_path_tracer_tpu.models.scene import RenderSettings, scene_from_arrays
-    from owl_path_tracer_tpu.utils.parser import CameraDesc
+    from owl_path_tracer.models import material as material_mod
+    from owl_path_tracer.models.camera import make_camera
+    from owl_path_tracer.models.scene import RenderSettings, scene_from_arrays
+    from owl_path_tracer.utils.parser import CameraDesc
 
     mat = material_mod.single(base_color=(0.6, 0.4, 0.3), roughness=0.7)
     v, idx, n = make_sphere_mesh(np.zeros(3), 1.0)
@@ -143,66 +143,6 @@ def test_sorted_render_matches_unsorted():
         scene, s, accel=fb, lanes=512, iters_per_launch=4, fused2_sort=False)
     np.testing.assert_allclose(img_sorted, img_plain, rtol=1e-5, atol=1e-6)
     assert rays_a == rays_b
-
-
-def test_fused_deferred_nee_matches_separate_occlusion():
-    """The fused mixed-sweep NEE wavefront (round 4: bounce + previous-vertex
-    shadow rays in ONE fused2 kernel sweep, shadow resolution deferred one
-    step) is estimator-IDENTICAL to the separate-occlusion path: same work
-    ids, same RNG draws, same contributions -- only the film arrival of each
-    NEE term moves one step later.  Cluster accel (no mixed kernel) forces
-    the old path; fused2 takes the fused one."""
-    from test_nee import box_with_light
-
-    scene = box_with_light()
-    s = RenderSettings(width=16, height=16, max_samples=16, max_path_depth=3,
-                       environment_intensity=0.0, environment_color=(0, 0, 0),
-                       use_nee=True)
-    accel_cl = film_mod.make_accel(scene, "cluster", cluster_size=64)
-    accel_f2 = film_mod.make_accel(scene, "fused2", cluster_size=64)
-    img_sep, rays_sep = wf.render_image_wavefront(
-        scene, s, accel=accel_cl, lanes=1024, iters_per_launch=8
-    )
-    img_fused, rays_fused = wf.render_image_wavefront(
-        scene, s, accel=accel_f2, lanes=1024, iters_per_launch=8,
-        fused_nee=True,
-    )
-    assert rays_sep == rays_fused
-    np.testing.assert_allclose(img_fused, img_sep, rtol=1e-4, atol=1e-5)
-    # and the sorted production configuration agrees too
-    img_fs, _ = wf.render_image_wavefront(
-        scene, s, accel=accel_f2, lanes=1024, iters_per_launch=8,
-        fused2_sort=True, fused_nee=True,
-    )
-    np.testing.assert_allclose(img_fs, img_sep, rtol=1e-4, atol=1e-5)
-
-
-def test_fused_deferred_nee_with_zombies():
-    """Deep-depth NEE: Russian roulette (depth > rr_start_depth=3) kills
-    paths AT a vertex that just created a pending shadow ray -- the ZOMBIE
-    case of the deferred-NEE state machine (lane banks one step late, after
-    its last shadow ray resolves).  Must still equal the separate-occlusion
-    estimator exactly, and the frame must DRAIN (no stuck pendings at
-    end-of-work)."""
-    import dataclasses
-
-    from test_nee import box_with_light
-
-    scene = box_with_light()
-    s = RenderSettings(width=12, height=12, max_samples=12, max_path_depth=8,
-                       environment_intensity=0.0, environment_color=(0, 0, 0),
-                       use_nee=True)
-    accel_cl = film_mod.make_accel(scene, "cluster", cluster_size=64)
-    accel_f2 = film_mod.make_accel(scene, "fused2", cluster_size=64)
-    img_sep, rays_sep = wf.render_image_wavefront(
-        scene, s, accel=accel_cl, lanes=512, iters_per_launch=4
-    )
-    img_fused, rays_fused = wf.render_image_wavefront(
-        scene, s, accel=accel_f2, lanes=512, iters_per_launch=4,
-        fused_nee=True,
-    )
-    assert rays_sep == rays_fused
-    np.testing.assert_allclose(img_fused, img_sep, rtol=1e-4, atol=1e-5)
 
 
 def test_checkpoint_kill_and_resume(tmp_path):

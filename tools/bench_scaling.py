@@ -1,5 +1,5 @@
 """Multi-device scaling benchmark: rays/s at 1..N devices on the available
-mesh (virtual CPU devices in tests; TPU chips on a pod slice).
+mesh (virtual CPU devices in tests; the GPUs of one host on the card).
 
 Usage:
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -27,7 +27,7 @@ def main():
     ap.add_argument("--depth", type=int, default=4)
     ap.add_argument("--cluster-size", type=int, default=None)
     ap.add_argument("--renderer", choices=["wavefront", "scan"], default="wavefront")
-    ap.add_argument("--intersector", default="cluster")
+    ap.add_argument("--intersector", default="fused2")
     ap.add_argument("--lanes-per-chip", type=int, default=8192)
     args = ap.parse_args()
 
@@ -38,9 +38,9 @@ def main():
 
     import jax
 
-    from owl_path_tracer_tpu.models.scene import RenderSettings, compile_scene
-    from owl_path_tracer_tpu.parallel import shard as shard_mod
-    from owl_path_tracer_tpu.render import film as film_mod
+    from owl_path_tracer.models.scene import RenderSettings, compile_scene
+    from owl_path_tracer.parallel import shard as shard_mod
+    from owl_path_tracer.render import film as film_mod
 
     devices = jax.devices()
     scene = compile_scene("assets", args.scene, (args.size, args.size))

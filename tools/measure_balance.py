@@ -46,9 +46,9 @@ def main():
 
     scene_name = generate.ensure_dragon(args.sub)
 
-    from owl_path_tracer_tpu.models.scene import RenderSettings, compile_scene
-    from owl_path_tracer_tpu.parallel import shard as shard_mod
-    from owl_path_tracer_tpu.render import film as film_mod
+    from owl_path_tracer.models.scene import RenderSettings, compile_scene
+    from owl_path_tracer.parallel import shard as shard_mod
+    from owl_path_tracer.render import film as film_mod
 
     scene = compile_scene("assets", scene_name, (args.size, args.size))
     settings = RenderSettings(

@@ -55,9 +55,9 @@ def main():
 
     generate.ensure_assets()
 
-    from owl_path_tracer_tpu.models.scene import RenderSettings, compile_scene
-    from owl_path_tracer_tpu.render import film as film_mod
-    from owl_path_tracer_tpu.utils.image import quantize_rgba8, write_png_rgba8
+    from owl_path_tracer.models.scene import RenderSettings, compile_scene
+    from owl_path_tracer.render import film as film_mod
+    from owl_path_tracer.utils.image import quantize_rgba8, write_png_rgba8
 
     out_dir = pathlib.Path(__file__).resolve().parents[1] / "docs" / "gallery"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -75,11 +75,11 @@ def main():
                            **env_kwargs)
         t0 = time.time()
         if args.hero:
-            from owl_path_tracer_tpu.render.wavefront import render_image_wavefront
+            from owl_path_tracer.render.wavefront import render_image_wavefront
 
-            accel = film_mod.make_accel(scene, "fused2", cluster_size=512)
+            accel = film_mod.make_accel(scene, "fused2")
             img, rays = render_image_wavefront(
-                scene, s, accel=accel, fused2_sort=True, readback_f16=True)
+                scene, s, accel=accel, fused2_sort=True)
             note = f"{rays/1e6:.0f} Mrays, fused2+wavefront+nee"
             out = out_dir / f"{name}_hero.png"
         else:

@@ -46,11 +46,11 @@ def main():
 
     generate.ensure_assets()
 
-    from owl_path_tracer_tpu.models.scene import RenderSettings, compile_scene
-    from owl_path_tracer_tpu.render import film as film_mod
-    from owl_path_tracer_tpu.render.wavefront import render_image_wavefront
-    from owl_path_tracer_tpu.utils.image import quantize_rgba8, write_png_rgba8
-    from owl_path_tracer_tpu.utils.parser import parse_settings
+    from owl_path_tracer.models.scene import RenderSettings, compile_scene
+    from owl_path_tracer.render import film as film_mod
+    from owl_path_tracer.render.wavefront import render_image_wavefront
+    from owl_path_tracer.utils.image import quantize_rgba8, write_png_rgba8
+    from owl_path_tracer.utils.parser import parse_settings
 
     here = pathlib.Path(__file__).resolve().parents[1]
     ref = parse_settings(here / "assets" / "settings.json")
@@ -71,7 +71,7 @@ def main():
     # the reference production settings verbatim: environment OFF, light-quad
     # illumination only, no NEE (the reference integrator has none live)
     scene = compile_scene("assets", ref.scene, (w, h))
-    accel = film_mod.make_accel(scene, "fused2-bf16")
+    accel = film_mod.make_accel(scene, "fused2")
 
     spp_done, rays_done, wall_done = 0, 0, 0.0
     img_sum = np.zeros((h, w, 3), np.float32)
